@@ -1,7 +1,7 @@
-// Native IO runtime for online_3d_reconstruction_tpu.
+// Native IO runtime for online_3d_reconstruction.
 //
 // The reference's ingest layer is native C++ (cv::imread + Boost.Filesystem,
-// SURVEY.md §2.1 C2); this library is its TPU-framework counterpart: image
+// SURVEY.md §2.1 C2); this library is its counterpart in this framework: image
 // decoding (PNG via libpng, JPEG via libjpeg — the formats real survey
 // cameras produce — plus PGM/PPM binary and the numpy .npy float32/uint8
 // containers the framework uses for lossless stereo data) and an ordered

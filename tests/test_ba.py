@@ -6,22 +6,22 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from online_3d_reconstruction_tpu.ba.problem import (
+from online_3d_reconstruction.ba.problem import (
     BAProblem,
     residuals,
     total_cost,
 )
-from online_3d_reconstruction_tpu.ba.schur import (
+from online_3d_reconstruction.ba.schur import (
     accumulate_normal_blocks,
     schur_solve,
     solve_ba,
 )
-from online_3d_reconstruction_tpu.config import BAConfig
-from online_3d_reconstruction_tpu.ba.window import WindowBA
-from online_3d_reconstruction_tpu.geometry import se3
+from online_3d_reconstruction.config import BAConfig
+from online_3d_reconstruction.ba.window import WindowBA
+from online_3d_reconstruction.geometry import se3
 
 
-from online_3d_reconstruction_tpu.ba.testing import make_synthetic_bundle
+from online_3d_reconstruction.ba.testing import make_synthetic_bundle
 
 
 def _make_problem(rng, **kw):
@@ -198,7 +198,7 @@ class TestPosePriors:
         )
 
     def test_position_prior_gradient_matches_jax_grad(self):
-        from online_3d_reconstruction_tpu.ba.problem import prior_residuals
+        from online_3d_reconstruction.ba.problem import prior_residuals
         rng = np.random.default_rng(21)
         problem = self._with_priors(rng)
         w_pos = 7.0
@@ -233,7 +233,7 @@ class TestPosePriors:
     def test_sharded_prior_solve_matches_single_device(self):
         import jax as _jax
         from jax.sharding import Mesh
-        from online_3d_reconstruction_tpu.parallel.ba_sharded import solve_ba_sharded
+        from online_3d_reconstruction.parallel.ba_sharded import solve_ba_sharded
 
         rng = np.random.default_rng(23)
         problem = self._with_priors(rng, rot_offset=0.01)
@@ -256,14 +256,14 @@ class TestSlotMajorEquivalence:
     divergence it was suspected of was the frontend's raw-fallback links)."""
 
     def _problem(self, rng, w=4, l=32, k=16):
-        from online_3d_reconstruction_tpu.ba.testing import make_synthetic_bundle
+        from online_3d_reconstruction.ba.testing import make_synthetic_bundle
 
         problem, _, _ = make_synthetic_bundle(rng, w=w, l=l, obs_noise=0.05,
                                               n_cap=w * k, obs_per_kf=k)
         return problem, k
 
     def _assert_blocks_match(self, problem, k, **kw):
-        from online_3d_reconstruction_tpu.ba.schur import accumulate_normal_blocks
+        from online_3d_reconstruction.ba.schur import accumulate_normal_blocks
 
         gen = accumulate_normal_blocks(problem.poses, problem.landmarks,
                                        problem, 0.5, **kw)
@@ -288,7 +288,7 @@ class TestSlotMajorEquivalence:
         self._assert_blocks_match(problem._replace(obs_weight=w), k)
 
     def test_full_3x3_information(self):
-        from online_3d_reconstruction_tpu.ba.problem import (
+        from online_3d_reconstruction.ba.problem import (
             StereoNoiseModel,
             stereo_obs_information,
         )

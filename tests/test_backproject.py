@@ -1,8 +1,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from online_3d_reconstruction_tpu.geometry import se3
-from online_3d_reconstruction_tpu.geometry.backproject import (
+from online_3d_reconstruction.geometry import se3
+from online_3d_reconstruction.geometry.backproject import (
     backproject_disparity,
     q_matrix,
 )
@@ -82,8 +82,8 @@ def test_color_stride_validation():
 
     import pytest
 
-    from online_3d_reconstruction_tpu.config import MappingConfig
-    from online_3d_reconstruction_tpu.runtime.pipeline import _color_stride
+    from online_3d_reconstruction.config import MappingConfig
+    from online_3d_reconstruction.runtime.pipeline import _color_stride
 
     assert _color_stride(MappingConfig(frame_point_stride=2)) == 2
     assert _color_stride(MappingConfig(frame_point_stride=2, color_stride=4)) == 4

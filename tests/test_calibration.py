@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from online_3d_reconstruction_tpu.io.calibration import (
+from online_3d_reconstruction.io.calibration import (
     CameraIntrinsics,
     StereoCalibration,
     init_undistort_rectify_map,
@@ -99,7 +99,7 @@ def test_q_matrix_roundtrip():
 
 
 class TestBandedRemap:
-    """remap_bilinear_banded == remap_bilinear (the hot-path MXU form must be
+    """remap_bilinear_banded == remap_bilinear (the hot-path matmul form must be
     exactly the bilinear gather it replaces, OOB/fill semantics included)."""
 
     def _rig(self):
@@ -113,7 +113,7 @@ class TestBandedRemap:
     def test_matches_gather_gray_and_color(self):
         import jax.numpy as jnp
 
-        from online_3d_reconstruction_tpu.stereo.rectify import (
+        from online_3d_reconstruction.stereo.rectify import (
             remap_bilinear,
             remap_bilinear_banded,
             vertical_band,
@@ -133,7 +133,7 @@ class TestBandedRemap:
     def test_matches_gather_wild_map_with_oob(self):
         import jax.numpy as jnp
 
-        from online_3d_reconstruction_tpu.stereo.rectify import (
+        from online_3d_reconstruction.stereo.rectify import (
             remap_bilinear,
             remap_bilinear_banded,
             vertical_band,
@@ -155,7 +155,7 @@ class TestBandedRemap:
     def test_band_cap_degenerates_to_full_height(self):
         import jax.numpy as jnp
 
-        from online_3d_reconstruction_tpu.stereo.rectify import (
+        from online_3d_reconstruction.stereo.rectify import (
             remap_bilinear,
             remap_bilinear_banded,
         )

@@ -2,13 +2,13 @@
 
 import numpy as np
 
-from online_3d_reconstruction_tpu.io.dataset import SyntheticSequence
-from online_3d_reconstruction_tpu.io.synthetic import nadir_pose
-from online_3d_reconstruction_tpu.runtime.checkpoint import (
+from online_3d_reconstruction.io.dataset import SyntheticSequence
+from online_3d_reconstruction.io.synthetic import nadir_pose
+from online_3d_reconstruction.runtime.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )
-from online_3d_reconstruction_tpu.runtime.pipeline import OnlineReconstructor
+from online_3d_reconstruction.runtime.pipeline import OnlineReconstructor
 
 from tests.test_odometry import _test_config, vo_rig, vo_scene  # noqa: F401
 

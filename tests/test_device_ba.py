@@ -5,7 +5,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from online_3d_reconstruction_tpu.ba.device_tracks import (
+from online_3d_reconstruction.ba.device_tracks import (
     WindowState,
     build_problem,
     create_window,
@@ -13,8 +13,8 @@ from online_3d_reconstruction_tpu.ba.device_tracks import (
     _append,
     _chain_roots,
 )
-from online_3d_reconstruction_tpu.ba.window import WindowBA
-from online_3d_reconstruction_tpu.config import BAConfig
+from online_3d_reconstruction.ba.window import WindowBA
+from online_3d_reconstruction.config import BAConfig
 
 
 def _chain_scenario(rng, n_kf=3, k_kp=64, drop_prob=0.0, pose_noise=0.2):
@@ -109,7 +109,7 @@ class TestBuildProblem:
         assert int(stats["dropped_landmarks"]) == wba.last_stats["dropped_landmarks"]
 
         # solving the device-packed problem lands on the same poses
-        from online_3d_reconstruction_tpu.ba.schur import solve_ba
+        from online_3d_reconstruction.ba.schur import solve_ba
 
         poses_dev, _, _ = solve_ba(problem, iters=cfg.gn_iters,
                                    damping=cfg.damping,

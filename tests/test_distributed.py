@@ -5,15 +5,17 @@ import numpy as np
 import pytest
 
 import jax
+from jax import monitoring
 
-from online_3d_reconstruction_tpu.io.dataset import SyntheticSequence
-from online_3d_reconstruction_tpu.io.synthetic import nadir_pose
-from online_3d_reconstruction_tpu.parallel import make_mesh
-from online_3d_reconstruction_tpu.runtime.distributed import (
+from online_3d_reconstruction.io.dataset import SyntheticSequence
+from online_3d_reconstruction.io.synthetic import nadir_pose
+from online_3d_reconstruction.parallel import make_mesh
+from online_3d_reconstruction.runtime.distributed import (
+    DistributedReconstructor,
     reconstruct_distributed,
 )
-from online_3d_reconstruction_tpu.runtime.pipeline import reconstruct
-from online_3d_reconstruction_tpu.utils.metrics import ate_rmse
+from online_3d_reconstruction.runtime.pipeline import reconstruct
+from online_3d_reconstruction.utils.metrics import ate_rmse
 
 from tests.test_odometry import _test_config, vo_rig, vo_scene  # noqa: F401
 
@@ -48,3 +50,31 @@ def test_distributed_loop_tracks(vo_scene, vo_rig, mesh4):
     assert ate_8 < max(2.0 * ate_1, 0.4), (ate_1, ate_8)
     assert len(res_8.map_points) > 500
     assert res_8.metrics["keyframes"] == res_1.metrics["keyframes"]
+
+
+def test_distributed_loop_compiles_nothing_in_steady_state(vo_scene, vo_rig,
+                                                           mesh4):
+    """Once warm, a frame of the distributed loop compiles no program: the
+    sharded SGM stage is one jitted program, not a shard_map traced anew
+    (and compiled op by op) on every frame."""
+    cfg = _test_config()
+    poses = [nadir_pose(0.8 * i, 0.1 * i, 12.0) for i in range(6)]
+    dataset = SyntheticSequence(scene=vo_scene, rig=vo_rig, poses=poses)
+    engine = DistributedReconstructor(cfg, vo_rig, mesh4, sgm_halo=16)
+    compiles = []
+
+    def listen(event, duration, **_):
+        if event == "/jax/core/compile/backend_compile_duration":
+            compiles.append(event)
+
+    monitoring.register_event_duration_secs_listener(listen)
+    try:
+        per_frame = []
+        for frame in dataset:
+            before = len(compiles)
+            engine.process(frame)
+            jax.block_until_ready(engine.gmap.points)
+            per_frame.append(len(compiles) - before)
+    finally:
+        monitoring.unregister_event_duration_listener(listen)
+    assert per_frame[-2:] == [0, 0], per_frame

@@ -5,14 +5,14 @@ import pytest
 
 import jax.numpy as jnp
 
-from online_3d_reconstruction_tpu.config import FeatureConfig
-from online_3d_reconstruction_tpu.features.brief import (
+from online_3d_reconstruction.config import FeatureConfig
+from online_3d_reconstruction.features.brief import (
     brief_pattern,
     describe_keypoints,
     detect_and_describe,
 )
-from online_3d_reconstruction_tpu.features.fast import detect_keypoints, fast_score
-from online_3d_reconstruction_tpu.utils.imaging import to_uint8
+from online_3d_reconstruction.features.fast import detect_keypoints, fast_score
+from online_3d_reconstruction.utils.imaging import to_uint8
 
 
 # the synthetic scene texture is smooth; threshold 5/255 yields ~800 corners
@@ -111,8 +111,8 @@ class TestPyramid:
 
     def test_scale_robust_matching(self, scene, small_rig):
         """Same terrain at 1.5x altitude: pyramid matching finds more pairs."""
-        from online_3d_reconstruction_tpu.features.match import match_descriptors
-        from online_3d_reconstruction_tpu.io.synthetic import nadir_pose
+        from online_3d_reconstruction.features.match import match_descriptors
+        from online_3d_reconstruction.io.synthetic import nadir_pose
 
         f1 = scene.render_stereo(nadir_pose(0, 0, 20.0), small_rig)
         f2 = scene.render_stereo(nadir_pose(0, 0, 30.0), small_rig)
@@ -158,7 +158,7 @@ class TestSubpixel:
         assert np.mean(errs_sub) < 0.6 * np.mean(errs_int)
 
     def test_translation_consistency_on_scene(self, small_rig):
-        from online_3d_reconstruction_tpu.io.synthetic import (
+        from online_3d_reconstruction.io.synthetic import (
             SyntheticScene,
             nadir_pose,
         )

@@ -5,14 +5,14 @@ import os
 import numpy as np
 import pytest
 
-from online_3d_reconstruction_tpu.io.dataset import (
+from online_3d_reconstruction.io.dataset import (
     ImageFolderSequence,
     flight_log_poses,
     gps_to_local,
     load_flight_log,
     match_poses_to_timestamps,
 )
-from online_3d_reconstruction_tpu.io.export import (
+from online_3d_reconstruction.io.export import (
     load_ply,
     load_trajectory_tum,
     save_pcd,
@@ -43,7 +43,7 @@ class TestExport:
         assert len(blob.split(b"DATA binary\n")[1]) == 10 * 16
 
     def test_tum_roundtrip(self, tmp_path):
-        from online_3d_reconstruction_tpu.io.synthetic import nadir_pose
+        from online_3d_reconstruction.io.synthetic import nadir_pose
 
         poses = np.stack([nadir_pose(i, 2 * i, 30.0, yaw=0.1 * i) for i in range(5)])
         path = str(tmp_path / "t.tum")
@@ -104,3 +104,15 @@ class TestImageFolder:
         assert frame.left.shape == (16, 24)
         assert frame.color.shape == (16, 24, 3)
         np.testing.assert_allclose(frame.prior_pose[:3, 3], [1, 0, 30], atol=1e-5)
+
+    def test_format_without_opencv_names_the_native_formats(self, tmp_path,
+                                                           monkeypatch):
+        """Where cv2 is not installed, a format the native decoder does not
+        read fails with an IOError that lists the formats it does."""
+        import sys
+
+        path = tmp_path / "frame.bmp"
+        path.write_bytes(b"BM")
+        monkeypatch.setitem(sys.modules, "cv2", None)   # import cv2 fails
+        with pytest.raises(IOError, match=r"\.png \.jpg \.jpeg.*cv2"):
+            ImageFolderSequence._load_image(str(path))

@@ -4,7 +4,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from online_3d_reconstruction_tpu.features.match import hamming_matrix, match_descriptors
+from online_3d_reconstruction.features.match import hamming_matrix, match_descriptors
 
 
 def _np_hamming(a: np.ndarray, b: np.ndarray) -> np.ndarray:

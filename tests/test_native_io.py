@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from online_3d_reconstruction_tpu.io import native_loader
+from online_3d_reconstruction.io import native_loader
 
 
 pytestmark = pytest.mark.skipif(

@@ -12,7 +12,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from online_3d_reconstruction_tpu.config import (
+from online_3d_reconstruction.config import (
     FeatureConfig,
     MappingConfig,
     MatchConfig,
@@ -21,27 +21,27 @@ from online_3d_reconstruction_tpu.config import (
     RuntimeConfig,
     StereoConfig,
 )
-from online_3d_reconstruction_tpu.geometry import se3
-from online_3d_reconstruction_tpu.io.calibration import identity_rig
-from online_3d_reconstruction_tpu.io.dataset import SyntheticSequence
-from online_3d_reconstruction_tpu.io.synthetic import (
+from online_3d_reconstruction.geometry import se3
+from online_3d_reconstruction.io.calibration import identity_rig
+from online_3d_reconstruction.io.dataset import SyntheticSequence
+from online_3d_reconstruction.io.synthetic import (
     Plateau,
     SyntheticScene,
     nadir_pose,
 )
-from online_3d_reconstruction_tpu.odometry.frontend import (
+from online_3d_reconstruction.odometry.frontend import (
     extract_frame_features,
     odometry_step,
 )
-from online_3d_reconstruction_tpu.runtime.pipeline import reconstruct
-from online_3d_reconstruction_tpu.stereo.sgm import sgm_disparity
-from online_3d_reconstruction_tpu.utils.metrics import ate_rmse, rpe_stats
+from online_3d_reconstruction.runtime.pipeline import reconstruct
+from online_3d_reconstruction.stereo.sgm import sgm_disparity
+from online_3d_reconstruction.utils.metrics import ate_rmse, rpe_stats
 
 
 def _test_config():
     return PipelineConfig(
         stereo=StereoConfig(height=192, width=256, max_disparity=32,
-                            num_paths=4, use_pallas=False),
+                            num_paths=4),
         features=FeatureConfig(max_keypoints=512, fast_threshold=5.0),
         matching=MatchConfig(ratio=0.9, max_hamming=80),
         odometry=OdometryConfig(ransac_threshold=0.5, min_inliers=10,

@@ -7,11 +7,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from online_3d_reconstruction_tpu.ba.schur import solve_ba
-from online_3d_reconstruction_tpu.config import StereoConfig
-from online_3d_reconstruction_tpu.geometry.backproject import PointCloud
-from online_3d_reconstruction_tpu.mapping.voxel import voxel_downsample
-from online_3d_reconstruction_tpu.parallel import (
+from online_3d_reconstruction.ba.schur import solve_ba
+from online_3d_reconstruction.config import StereoConfig
+from online_3d_reconstruction.geometry.backproject import PointCloud
+from online_3d_reconstruction.mapping.voxel import voxel_downsample
+from online_3d_reconstruction.parallel import (
     batch_disparity,
     make_mesh,
     sharded_voxel_downsample,
@@ -54,11 +54,11 @@ class TestShardedWindowBA:
         """The distributed loop's device-window keyframe event (track build +
         psum-sharded Schur solve) must reproduce the single-device solve —
         the path that replaced the forced host-BA downgrade."""
-        from online_3d_reconstruction_tpu.ba.device_tracks import (
+        from online_3d_reconstruction.ba.device_tracks import (
             create_window,
             keyframe_core,
         )
-        from online_3d_reconstruction_tpu.config import BAConfig
+        from online_3d_reconstruction.config import BAConfig
 
         cfg = BAConfig(window=4, max_landmarks=64, max_obs=512)
         k = 64
@@ -89,10 +89,10 @@ class TestShardedWindowBA:
 
 class TestBatchDisparity:
     def test_sharded_matches_unsharded(self, mesh8, scene, small_rig):
-        from online_3d_reconstruction_tpu.io.synthetic import nadir_pose
+        from online_3d_reconstruction.io.synthetic import nadir_pose
 
         cfg = StereoConfig(height=192, width=256, max_disparity=16,
-                           num_paths=2, use_pallas=False, speckle_window=0)
+                           num_paths=2, speckle_window=0)
         frames = [
             scene.render_stereo(nadir_pose(2.0 * i, 0.0, 24.0), small_rig)
             for i in range(8)
@@ -127,12 +127,12 @@ class TestShardedVoxel:
 
 class TestShardedSGM:
     def test_row_slab_matches_monolithic(self, mesh8, scene, small_rig):
-        from online_3d_reconstruction_tpu.io.synthetic import nadir_pose
-        from online_3d_reconstruction_tpu.parallel.sgm_sharded import sharded_disparity
-        from online_3d_reconstruction_tpu.stereo.sgm import sgm_disparity
+        from online_3d_reconstruction.io.synthetic import nadir_pose
+        from online_3d_reconstruction.parallel.sgm_sharded import sharded_disparity
+        from online_3d_reconstruction.stereo.sgm import sgm_disparity
 
         cfg = StereoConfig(height=192, width=256, max_disparity=32,
-                           num_paths=8, use_pallas=False)
+                           num_paths=8)
         f = scene.render_stereo(nadir_pose(0.0, 0.0, 24.0), small_rig)
         left = jnp.asarray(f.left)
         right = jnp.asarray(f.right)
@@ -152,10 +152,10 @@ class TestShardedSGM:
         assert close.mean() > 0.995, f"1px agreement {close.mean():.4f}"
 
     def test_rejects_bad_geometry(self, mesh8, scene, small_rig):
-        from online_3d_reconstruction_tpu.parallel.sgm_sharded import sharded_disparity
+        from online_3d_reconstruction.parallel.sgm_sharded import sharded_disparity
 
         cfg = StereoConfig(height=192, width=256, max_disparity=16,
-                           num_paths=2, use_pallas=False)
+                           num_paths=2)
         with pytest.raises(ValueError):
             sharded_disparity(jnp.zeros((190, 256)), jnp.zeros((190, 256)),
                               cfg, mesh8)  # 190 % 8 != 0
@@ -166,7 +166,7 @@ class TestShardedSGM:
 
 class TestVoxelRouteMerge:
     def test_matches_global_downsample(self, mesh8):
-        from online_3d_reconstruction_tpu.parallel.voxel_sharded import (
+        from online_3d_reconstruction.parallel.voxel_sharded import (
             voxel_route_merge,
         )
 
@@ -192,7 +192,7 @@ class TestVoxelRouteMerge:
         np.testing.assert_allclose(out_cols[o2], ref_cols[o1], atol=1e-4)
 
     def test_overflow_counted(self, mesh8):
-        from online_3d_reconstruction_tpu.parallel.voxel_sharded import (
+        from online_3d_reconstruction.parallel.voxel_sharded import (
             voxel_route_merge,
         )
 
@@ -212,8 +212,8 @@ class TestSlotShardedBA:
     one all_gather (pose blocks) per GN iteration."""
 
     def test_matches_single_device(self, mesh8):
-        from online_3d_reconstruction_tpu.ba.testing import make_synthetic_bundle
-        from online_3d_reconstruction_tpu.parallel.ba_sharded import (
+        from online_3d_reconstruction.ba.testing import make_synthetic_bundle
+        from online_3d_reconstruction.parallel.ba_sharded import (
             solve_ba_slot_sharded,
         )
 
@@ -233,8 +233,8 @@ class TestSlotShardedBA:
         np.testing.assert_allclose(np.asarray(t8), np.asarray(t1), rtol=1e-4)
 
     def test_rejects_bad_layout(self, mesh8):
-        from online_3d_reconstruction_tpu.ba.testing import make_synthetic_bundle
-        from online_3d_reconstruction_tpu.parallel.ba_sharded import (
+        from online_3d_reconstruction.ba.testing import make_synthetic_bundle
+        from online_3d_reconstruction.parallel.ba_sharded import (
             solve_ba_slot_sharded,
         )
 

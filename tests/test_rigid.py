@@ -5,8 +5,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from online_3d_reconstruction_tpu.geometry import se3
-from online_3d_reconstruction_tpu.odometry.rigid import ransac_rigid, rigid_transform
+from online_3d_reconstruction.geometry import se3
+from online_3d_reconstruction.odometry.rigid import ransac_rigid, rigid_transform
 
 
 def _random_pose(rng, t_scale=2.0, r_scale=0.5):

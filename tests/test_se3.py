@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from online_3d_reconstruction_tpu.geometry import se3
+from online_3d_reconstruction.geometry import se3
 
 
 def random_pose(rng):

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from online_3d_reconstruction_tpu.utils.imaging import bilinear_sample_np
+from online_3d_reconstruction.utils.imaging import bilinear_sample_np
 
 
 def test_stereo_photometric_consistency(stereo_frame):

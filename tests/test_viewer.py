@@ -4,7 +4,7 @@ import base64
 
 import numpy as np
 
-from online_3d_reconstruction_tpu.io.viewer import export_html
+from online_3d_reconstruction.io.viewer import export_html
 
 
 def test_export_html_embeds_points(tmp_path):

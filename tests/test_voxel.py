@@ -4,15 +4,15 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from online_3d_reconstruction_tpu.geometry.backproject import PointCloud
-from online_3d_reconstruction_tpu.mapping.global_map import (
+from online_3d_reconstruction.geometry.backproject import PointCloud
+from online_3d_reconstruction.mapping.global_map import (
     create_map,
     downsample_map,
     insert_cloud,
     map_to_numpy,
     needs_downsample,
 )
-from online_3d_reconstruction_tpu.mapping.voxel import voxel_downsample
+from online_3d_reconstruction.mapping.voxel import voxel_downsample
 
 
 def _np_voxel_filter(points, colors, valid, voxel, bounds):

@@ -7,7 +7,7 @@ BA window occupancy, and the error of a one-shot OPTIMAL oracle: a batch
 least-squares fuse of all priors with GT relative poses (the information
 bound for this estimator class).
 
-Usage: PYTHONPATH=/root/repo python tools/ate_diag.py [--frames N]
+Usage (from the repo root): PYTHONPATH=. python tools/ate_diag.py [--frames N]
 """
 from __future__ import annotations
 
@@ -15,19 +15,19 @@ import argparse
 
 import numpy as np
 
-import jax
+from online_3d_reconstruction.utils.compile_cache import enable_compile_cache
 
-jax.config.update("jax_platforms", "cpu")
+enable_compile_cache()
 
-from online_3d_reconstruction_tpu.config import (  # noqa: E402
+from online_3d_reconstruction.config import (  # noqa: E402
     BAConfig, FeatureConfig, MappingConfig, OdometryConfig, PipelineConfig,
     RuntimeConfig, StereoConfig)
-from online_3d_reconstruction_tpu.io.calibration import identity_rig  # noqa: E402
-from online_3d_reconstruction_tpu.io.dataset import SyntheticSequence  # noqa: E402
-from online_3d_reconstruction_tpu.io.synthetic import (  # noqa: E402
+from online_3d_reconstruction.io.calibration import identity_rig  # noqa: E402
+from online_3d_reconstruction.io.dataset import SyntheticSequence  # noqa: E402
+from online_3d_reconstruction.io.synthetic import (  # noqa: E402
     Plateau, SyntheticScene, make_survey_trajectory)
-from online_3d_reconstruction_tpu.runtime.pipeline import OnlineReconstructor  # noqa: E402
-from online_3d_reconstruction_tpu.utils.metrics import ate_rmse  # noqa: E402
+from online_3d_reconstruction.runtime.pipeline import OnlineReconstructor  # noqa: E402
+from online_3d_reconstruction.utils.metrics import ate_rmse  # noqa: E402
 
 PRIOR_T_SIGMA = 0.15
 PRIOR_R_SIGMA = 0.01
@@ -73,8 +73,7 @@ def main():
     priors = np.stack([f.prior_pose for f in frames])
 
     cfg = PipelineConfig(
-        stereo=StereoConfig(height=h, width=w, max_disparity=d, num_paths=8,
-                            use_pallas=False),
+        stereo=StereoConfig(height=h, width=w, max_disparity=d, num_paths=8),
         features=FeatureConfig(max_keypoints=512, fast_threshold=5.0),
         odometry=OdometryConfig(ransac_threshold=0.5, max_point_depth=60.0),
         ba=BAConfig(prior_position_weight=1.0 / PRIOR_T_SIGMA**2,

@@ -4,7 +4,7 @@ Runs the exact bench trajectory/scene in precomputed-GT-disparity mode
 (skipping SGM so a CPU run takes seconds, isolating the estimator from
 stereo quality), and reports ATE for the full stack vs prior-only
 dead-reckoning under different BA settings. Used to tune the anisotropic
-observation weighting (ba.problem.stereo_obs_weights) toward the VERDICT r2
+observation weighting (ba.problem.stereo_obs_weights) toward the r2 review
 target: full-stack ATE <= 0.5x prior-only.
 
 Usage: python tools/ate_lab.py [--sgm] [--frames N]
@@ -21,18 +21,19 @@ import numpy as np
 
 import jax
 
-if os.environ.get("O3R_ATELAB_TPU", "") != "1":
-    jax.config.update("jax_platforms", "cpu")
+from online_3d_reconstruction.utils.compile_cache import enable_compile_cache  # noqa: E402
 
-from online_3d_reconstruction_tpu.config import (  # noqa: E402
+enable_compile_cache()
+
+from online_3d_reconstruction.config import (  # noqa: E402
     BAConfig, FeatureConfig, MappingConfig, OdometryConfig, PipelineConfig,
     RuntimeConfig, StereoConfig)
-from online_3d_reconstruction_tpu.io.calibration import identity_rig  # noqa: E402
-from online_3d_reconstruction_tpu.io.dataset import SyntheticSequence  # noqa: E402
-from online_3d_reconstruction_tpu.io.synthetic import (  # noqa: E402
+from online_3d_reconstruction.io.calibration import identity_rig  # noqa: E402
+from online_3d_reconstruction.io.dataset import SyntheticSequence  # noqa: E402
+from online_3d_reconstruction.io.synthetic import (  # noqa: E402
     Plateau, SyntheticScene, make_survey_trajectory)
-from online_3d_reconstruction_tpu.runtime.pipeline import OnlineReconstructor  # noqa: E402
-from online_3d_reconstruction_tpu.utils.metrics import ate_rmse  # noqa: E402
+from online_3d_reconstruction.runtime.pipeline import OnlineReconstructor  # noqa: E402
+from online_3d_reconstruction.utils.metrics import ate_rmse  # noqa: E402
 
 PRIOR_T_SIGMA = 0.15
 PRIOR_R_SIGMA = 0.01
@@ -67,7 +68,7 @@ def main():
     h, w, d = 384, 512, 64
     calib = None
     if args.distorted:
-        from online_3d_reconstruction_tpu.io.calibration import (
+        from online_3d_reconstruction.io.calibration import (
             CameraIntrinsics,
             StereoCalibration,
             stereo_rectify,
@@ -99,10 +100,10 @@ def main():
         else:
             import jax.numpy as jnp
 
-            from online_3d_reconstruction_tpu.stereo.sgm import sgm_disparity
+            from online_3d_reconstruction.stereo.sgm import sgm_disparity
 
             scfg = StereoConfig(height=h, width=w, max_disparity=d,
-                                num_paths=8, use_pallas=False)
+                                num_paths=8)
             maps = []
             for i, f in enumerate(frames):
                 dd, _ = sgm_disparity(jnp.asarray(f.left),
@@ -120,8 +121,7 @@ def main():
           f"{0.5 * ate_prior:.4f})", flush=True)
 
     base = PipelineConfig(
-        stereo=StereoConfig(height=h, width=w, max_disparity=d, num_paths=8,
-                            use_pallas=False),
+        stereo=StereoConfig(height=h, width=w, max_disparity=d, num_paths=8),
         features=FeatureConfig(max_keypoints=512, fast_threshold=5.0),
         odometry=OdometryConfig(ransac_threshold=0.5, max_point_depth=60.0),
         ba=BAConfig(prior_position_weight=1.0 / PRIOR_T_SIGMA**2,
@@ -134,7 +134,7 @@ def main():
     )
 
     w = dataclasses.replace(base.ba, obs_weighting=True, huber_delta=3.0)
-    # r5 sweep: tools/sgm_cache_tpu.py measured the REAL keypoint-level SGM
+    # r5 sweep: tools/sgm_cache.py measured the REAL keypoint-level SGM
     # disparity error at rms 0.266 px (frame-mean bias +0.04..+0.16 px) and
     # ba_bias measured subpixel keypoint localization ~0.2 px — the bench's
     # (0.5, 0.5) constants are ~2x conservative, diluting the visual terms

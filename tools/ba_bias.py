@@ -6,7 +6,7 @@ observation error. Per-keyframe mean residual exposes any frame-level
 correlated bias — the failure mode that makes strong observation weights
 HURT (tools/ate_lab.py: ATE rises monotonically as sigma_px drops).
 
-Usage: PYTHONPATH=/root/repo python tools/ba_bias.py [--frames N] [--sgm]
+Usage (from the repo root): PYTHONPATH=. python tools/ba_bias.py [--frames N] [--sgm]
 """
 from __future__ import annotations
 
@@ -14,19 +14,19 @@ import argparse
 
 import numpy as np
 
-import jax
+from online_3d_reconstruction.utils.compile_cache import enable_compile_cache
 
-jax.config.update("jax_platforms", "cpu")
+enable_compile_cache()
 
-from online_3d_reconstruction_tpu.ba.device_tracks import build_problem  # noqa: E402
-from online_3d_reconstruction_tpu.config import (  # noqa: E402
+from online_3d_reconstruction.ba.device_tracks import build_problem  # noqa: E402
+from online_3d_reconstruction.config import (  # noqa: E402
     BAConfig, FeatureConfig, MappingConfig, OdometryConfig, PipelineConfig,
     RuntimeConfig, StereoConfig)
-from online_3d_reconstruction_tpu.io.calibration import identity_rig  # noqa: E402
-from online_3d_reconstruction_tpu.io.dataset import SyntheticSequence  # noqa: E402
-from online_3d_reconstruction_tpu.io.synthetic import (  # noqa: E402
+from online_3d_reconstruction.io.calibration import identity_rig  # noqa: E402
+from online_3d_reconstruction.io.dataset import SyntheticSequence  # noqa: E402
+from online_3d_reconstruction.io.synthetic import (  # noqa: E402
     Plateau, SyntheticScene, make_survey_trajectory)
-from online_3d_reconstruction_tpu.runtime.pipeline import OnlineReconstructor  # noqa: E402
+from online_3d_reconstruction.runtime.pipeline import OnlineReconstructor  # noqa: E402
 
 
 def main():
@@ -52,8 +52,7 @@ def main():
     gt = np.stack([f.gt_pose for f in frames])
 
     cfg = PipelineConfig(
-        stereo=StereoConfig(height=h, width=w, max_disparity=d, num_paths=8,
-                            use_pallas=False),
+        stereo=StereoConfig(height=h, width=w, max_disparity=d, num_paths=8),
         features=FeatureConfig(max_keypoints=512, fast_threshold=5.0,
                                subpixel=not args.no_subpixel),
         odometry=OdometryConfig(ransac_threshold=0.5, max_point_depth=60.0),

@@ -5,7 +5,7 @@ If the bias concentrates within a few px of GT disparity discontinuities it
 is SGM foreground fattening leaking past the lift's +-2 px edge gate; if it
 is uniform it is a matching/aggregation artifact.
 
-Usage: PYTHONPATH=/root/repo python tools/bias_vs_edge.py /tmp/sgm_cache_v.npz
+Usage (from the repo root): PYTHONPATH=. python tools/bias_vs_edge.py build/sgm_cache_v.npz
 """
 from __future__ import annotations
 
@@ -13,22 +13,22 @@ import sys
 
 import numpy as np
 
-import jax
+import jax.numpy as jnp
 
-jax.config.update("jax_platforms", "cpu")
+from online_3d_reconstruction.utils.compile_cache import enable_compile_cache
 
-import jax.numpy as jnp  # noqa: E402
+enable_compile_cache()
 
-from online_3d_reconstruction_tpu.config import FeatureConfig  # noqa: E402
-from online_3d_reconstruction_tpu.features.fast import detect_keypoints  # noqa: E402
-from online_3d_reconstruction_tpu.io.calibration import identity_rig  # noqa: E402
-from online_3d_reconstruction_tpu.io.dataset import SyntheticSequence  # noqa: E402
-from online_3d_reconstruction_tpu.io.synthetic import (  # noqa: E402
+from online_3d_reconstruction.config import FeatureConfig  # noqa: E402
+from online_3d_reconstruction.features.fast import detect_keypoints  # noqa: E402
+from online_3d_reconstruction.io.calibration import identity_rig  # noqa: E402
+from online_3d_reconstruction.io.dataset import SyntheticSequence  # noqa: E402
+from online_3d_reconstruction.io.synthetic import (  # noqa: E402
     Plateau, SyntheticScene, make_survey_trajectory)
 
 
 def main():
-    cache = sys.argv[1] if len(sys.argv) > 1 else "/tmp/sgm_cache_v.npz"
+    cache = sys.argv[1] if len(sys.argv) > 1 else "build/sgm_cache_v.npz"
     disp_all = np.load(cache)["disparity"]
     n_frames = min(12, len(disp_all))
 

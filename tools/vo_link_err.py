@@ -4,7 +4,7 @@ If consecutive-keyframe VO relatives are cm-accurate, the ATE gap is the BA
 weighting/window structure; if they are ~0.1 m, the vision front end itself
 (detection/matching/lift) is the limiter.
 
-Usage: PYTHONPATH=/root/repo python tools/vo_link_err.py [--frames N] [--sgm]
+Usage (from the repo root): PYTHONPATH=. python tools/vo_link_err.py [--frames N] [--sgm]
 """
 from __future__ import annotations
 
@@ -12,18 +12,18 @@ import argparse
 
 import numpy as np
 
-import jax
+from online_3d_reconstruction.utils.compile_cache import enable_compile_cache
 
-jax.config.update("jax_platforms", "cpu")
+enable_compile_cache()
 
-from online_3d_reconstruction_tpu.config import (  # noqa: E402
+from online_3d_reconstruction.config import (  # noqa: E402
     BAConfig, FeatureConfig, MappingConfig, OdometryConfig, PipelineConfig,
     RuntimeConfig, StereoConfig)
-from online_3d_reconstruction_tpu.io.calibration import identity_rig  # noqa: E402
-from online_3d_reconstruction_tpu.io.dataset import SyntheticSequence  # noqa: E402
-from online_3d_reconstruction_tpu.io.synthetic import (  # noqa: E402
+from online_3d_reconstruction.io.calibration import identity_rig  # noqa: E402
+from online_3d_reconstruction.io.dataset import SyntheticSequence  # noqa: E402
+from online_3d_reconstruction.io.synthetic import (  # noqa: E402
     Plateau, SyntheticScene, make_survey_trajectory)
-from online_3d_reconstruction_tpu.runtime.pipeline import OnlineReconstructor  # noqa: E402
+from online_3d_reconstruction.runtime.pipeline import OnlineReconstructor  # noqa: E402
 
 
 def main():
@@ -46,8 +46,7 @@ def main():
     # VO only, no BA: pose_k = pose_{k-1} o rel_vo -> per-link error is the
     # difference of consecutive absolute errors
     cfg = PipelineConfig(
-        stereo=StereoConfig(height=h, width=w, max_disparity=d, num_paths=8,
-                            use_pallas=False),
+        stereo=StereoConfig(height=h, width=w, max_disparity=d, num_paths=8),
         features=FeatureConfig(max_keypoints=512, fast_threshold=5.0),
         odometry=OdometryConfig(ransac_threshold=0.5, max_point_depth=60.0),
         ba=BAConfig(),
